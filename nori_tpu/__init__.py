@@ -1,10 +1,10 @@
-"""nori_tpu — a TPU-native physically-based renderer.
+"""nori_tpu — a wavefront physically-based renderer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the Nori-2
+A from-scratch JAX/XLA re-design of the capabilities of the Nori-2
 educational ray tracer plus joyDeng's GPU path-graph radiance-aggregation
 fork (reference layout: see SURVEY.md).  Execution model: megasample
-wavefront rendering over SoA arrays in HBM, sharded across TPU devices
-with `jax.sharding`, using counter-based RNG for determinism under any
+wavefront rendering over SoA arrays in device memory, sharded across
+devices with `jax.sharding`, using counter-based RNG for determinism under any
 partitioning.
 
 Public entry points:

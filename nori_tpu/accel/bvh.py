@@ -1,15 +1,16 @@
 """Host-side BVH construction.
 
 Binned-SAH binary BVH (16 bins, largest-centroid-extent axis) collapsed
-into an 8-wide layout for TPU wavefront traversal.  Triangles are
+into an 8-wide layout for wavefront traversal.  Triangles are
 reordered so every leaf is a contiguous [start, count] range with
 count <= LEAF_SIZE; the caller applies the returned permutation to all
 per-triangle arrays (nori_tpu.scene.Scene.compile).
 
 Replaces the reference's assignment-level octree/BVH (accel.h:26-71,
 SURVEY.md §2.14); shallow-and-wide instead of deep-and-binary because
-TPU traversal cost is per *step* (gather + 8 vectorized box tests), so
-minimizing tree depth matters more than minimizing node tests.
+the lock-step traversal pays per *step* (gather + 8 vectorized box
+tests) for every lane, so minimizing tree depth matters more than
+minimizing node tests.
 """
 
 from __future__ import annotations

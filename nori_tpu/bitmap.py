@@ -680,11 +680,30 @@ def write_exr(filename: str, img: np.ndarray, half: bool = True,
         compression=compression)
 
 
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(rgb8: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes: 8-bit truecolor, filter type 0 on
+    every row, one zlib stream (PNG spec, ISO/IEC 15948)."""
+    rgb8 = np.ascontiguousarray(rgb8, dtype=np.uint8)
+    if rgb8.ndim != 3 or rgb8.shape[2] != 3:
+        raise NoriError(f"encode_png: expected (H, W, 3), got {rgb8.shape}")
+    h, w = rgb8.shape[:2]
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), rgb8.reshape(h, w * 3)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
 def write_png(filename: str, img: np.ndarray):
     """sRGB-tonemap linear RGB to an 8-bit PNG (src/bitmap.cpp:110-134)."""
-    from PIL import Image
-
     img = np.asarray(img, dtype=np.float32)
     srgb = np_to_srgb(np.clip(img, 0.0, None))
     out = np.clip(srgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(out, mode="RGB").save(filename)
+    with open(filename, "wb") as f:
+        f.write(encode_png(out))

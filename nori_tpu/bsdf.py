@@ -7,11 +7,11 @@ assignments) and the Beckmann rough-plastic microfacet model
 (src/microfacet.cpp, eval/pdf/sample left to the assignments; semantics
 pinned by scenes/pa5/tests/{chi2test,ttest}-microfacet.xml).
 
-TPU-native design: instead of virtual dispatch per ray, all BSDF
+Data-parallel design: instead of virtual dispatch per ray, all BSDF
 parameters live in a per-mesh SoA table (`BSDFTable`), hits gather their
 mesh's row, and `eval/pdf/sample` compute every model's answer with
 cheap masked element-wise math, then select by type code.  This is
-branch-free wavefront shading: the VPU evaluates 4 small formulas
+branch-free wavefront shading: every lane evaluates 4 small formulas
 instead of diverging.
 
 Directions use the local shading frame with +z = normal, matching

@@ -3,8 +3,8 @@
 PerspectiveCamera is a behavioral port of src/perspective.cpp:32-150:
 the sample->camera projective transform is built in activate() with the
 same matrix chain, and `sample_rays` generates a whole wavefront of
-primary rays at once (the TPU replacement for per-sample sampleRay
-calls in renderBlock, src/main.cpp:38-67).
+primary rays at once (the data-parallel replacement for per-sample
+sampleRay calls in renderBlock, src/main.cpp:38-67).
 """
 
 from __future__ import annotations
@@ -86,11 +86,11 @@ class PerspectiveCamera(Camera):
         p = sample_positions * params["inv_output_size"]
         # apply sample_to_camera to (px, py, 0) as a projective point.
         # The tiny matrix applications are written as ELEMENTWISE
-        # broadcast sums, not `@`: XLA lowers dot_general to bf16 MXU
-        # passes by default on TPU, which bent every primary ray by up
-        # to ~4e-3 (and left |d| off unit by the same) — downstream,
-        # the path-graph delta-alignment tests rejected every stored
-        # specular sample.  VPU elementwise ops are exact f32.
+        # broadcast sums, not `@`: XLA may run a float32 dot_general at
+        # reduced precision (TF32 on the GPU), which bends primary rays
+        # and leaves |d| off unit — downstream, the path-graph
+        # delta-alignment tests reject every stored specular sample.
+        # Elementwise float32 math is exact to the ulp.
         xyz0 = jnp.stack(
             [p[..., 0], p[..., 1], jnp.zeros_like(p[..., 0])], axis=-1
         )

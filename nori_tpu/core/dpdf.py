@@ -37,9 +37,9 @@ def sample_discrete(cdf, u):
     n = cdf.shape[0]
     if n <= 2048:
         # branchless compare-all: jnp.searchsorted's default lowering
-        # is a log-n loop of per-query gathers, which on TPU costs
-        # milliseconds per 131k queries even for a 30-entry emitter
-        # CDF; the (N, n) comparison matrix is pure VPU work
+        # is a log-n loop of per-query gathers; the (N, n) comparison
+        # matrix is one fused elementwise pass over a short emitter
+        # CDF
         idx = jnp.sum(
             (u[..., None] >= cdf[1:n - 1]).astype(jnp.int32), axis=-1)
     else:

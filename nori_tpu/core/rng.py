@@ -2,7 +2,7 @@
 
 The reference uses pcg32 seeded per 32x32 tile (src/independent.cpp:48-53)
 so every tile's sample stream is reproducible regardless of thread
-scheduling.  The TPU-native equivalent is a stateless counter-based
+scheduling.  The data-parallel equivalent is a stateless counter-based
 generator: every (lane, decision) pair maps to an independent uniform via
 a hash of (seed, lane_id, stream_id).  This is reproducible under ANY
 sharding/batching of the sample space — a requirement for the

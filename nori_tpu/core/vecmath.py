@@ -1,6 +1,6 @@
 """Vector math over batched (..., 3) arrays.
 
-TPU-native replacement for the reference's Eigen-derived scalar types
+Batched replacement for the reference's Eigen-derived scalar types
 (reference: include/nori/vector.h, frame.h, ray.h, common.h:146-266).
 Everything here operates on arrays whose last axis is the spatial
 dimension, so a "Vector3f" is any (..., 3) jnp array and a million rays

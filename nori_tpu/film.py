@@ -2,7 +2,7 @@
 
 Replaces ImageBlock (include/nori/block.h, src/block.cpp:74-114).  The
 reference splats each sample into a mutex-protected Color4f array using
-tabulated separable filter weights; the TPU-native equivalent is a
+tabulated separable filter weights; the data-parallel equivalent is a
 batched scatter-add over a bordered (H+2B, W+2B, 4) RGBA-weight array:
 for the K*K static filter footprint, every sample adds value*wx*wy at
 (pixel + offset) via `Array.at[].add(mode="drop")` — no mutexes, no
@@ -83,10 +83,9 @@ def splat(spec: FilmSpec, rfilter, accum, positions, values):
     wy = jnp.where(ty.astype(jnp.float32) <= p[:, 1:2] + spec.radius, wy, 0.0)
     wx = jnp.where(valid[:, None], wx, 0.0)
 
-    # One flat 1-D scatter per filter tap.  TPU note: an (N, K, K, 4)
-    # contribution tensor pads its minor dims onto (8, 128) tiles — a
-    # 41x memory blowup — so taps are scattered individually into the
-    # flattened film with channel-interleaved indices instead.
+    # One flat 1-D scatter per filter tap into the flattened film with
+    # channel-interleaved indices, instead of materialising an
+    # (N, K, K, 4) contribution tensor.
     hp, wp, _ = spec.padded_shape
     rgba = jnp.concatenate([v, jnp.ones_like(v[:, :1])], axis=-1)  # (N, 4)
     flat = accum.reshape(-1)
@@ -124,7 +123,7 @@ def merge(accum_a, accum_b):
 
 # ---------------------------------------------------------------------------
 # Host-side tile schedule (spiral order, matching BlockGenerator,
-# src/block.cpp:121-164).  On TPU we render the whole wavefront at once,
+# src/block.cpp:121-164).  Here the whole wavefront renders at once,
 # but the spiral schedule is kept for incremental/preview rendering and
 # for API parity.
 # ---------------------------------------------------------------------------

@@ -50,11 +50,8 @@ class WhittedIntegrator(Integrator):
                 hit = intersect(sd, o, d, mint, maxt)
                 # fast one-gather helpers (same values as the generic
                 # fill_interaction/sample_emitter_point/bsdf.gather —
-                # the packed tables carry identical data).  Measured on
-                # ajax-rough (541k tris, streamed sweep, one v5e chip):
-                # the 10-gather fill + per-field BSDF/emitter gathers
-                # cost ~67 ms of a 91.5 ms 131k-lane batch; the sweeps
-                # themselves only ~24 ms (scripts/tpu_jobs 022 diag).
+                # the packed tables carry identical data): one row
+                # gather per table instead of one per field
                 its = fill_interaction_fast(sd, hit, o, d)
                 live_hit = alive & its.valid
 
@@ -92,8 +89,7 @@ class WhittedIntegrator(Integrator):
                 # cull provably-zero shadow queries (dead/specular
                 # lanes, back-facing samples) like the MIS wavefront:
                 # their contribution is 0 whatever vis says, and the
-                # degenerate interval keeps the sweep's ray-tile
-                # culling bounds tight
+                # degenerate interval ends their BVH walk at the root
                 ok = (live_hit & (g_over_p > 0.0)
                       & (jnp.max(beta * f, axis=-1) > 0.0))
                 smaxt = jnp.where(ok, smaxt, -1.0)

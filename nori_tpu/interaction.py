@@ -69,9 +69,8 @@ def fill_interaction_fast(scene, hit: Hit, o, d) -> Interaction:
     """One-gather interaction fill for the hot wavefront path.
 
     Reads the packed (T, 28) attribute table (SceneData.tri_attr) in a
-    single row gather.  Barycentrics come from the Hit record (the
-    sweep kernel tracks only (t, idx); the intersect() epilogue
-    reconstructs (u, v) once for all consumers); the hit point is
+    single row gather.  Barycentrics come from the Hit record; the
+    hit point is
     reconstructed from the winning triangle's v0|e1|e2 row, which is
     sturdier than o + t*d for grazing shadow epsilons.
     """

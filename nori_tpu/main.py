@@ -3,7 +3,7 @@
 Mirrors src/main.cpp:153-211: an XML argument loads and either renders
 (root = scene) or runs a statistical test suite (root = test); an EXR
 argument is tonemapped to PNG (stand-in for the nanogui viewer, which
-has no place on a TPU host).
+has no place on a display-less accelerator host).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def main(argv=None):
                     help="terminal display: live half-block film view "
                          "while rendering, interactive exposure-key "
                          "viewer for .exr input (the NoriScreen "
-                         "equivalent on a display-less TPU host, "
+                         "equivalent on a display-less host, "
                          "src/gui.cpp:19-132)")
     args = ap.parse_args(argv)
 
@@ -59,6 +59,9 @@ def main(argv=None):
     from nori_tpu import load_from_xml
     from nori_tpu import registry
     from nori_tpu.registry import NoriError
+    from nori_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     # NoriException-style fatal handling (src/main.cpp:196-199)
     try:
@@ -87,7 +90,8 @@ def main(argv=None):
         print(
             f"Rendered {stats['pixels']} px x {stats['spp']} spp in "
             f"{stats['seconds']:.2f}s "
-            f"({stats['samples_per_sec'] / 1e6:.2f} Msamples/s) -> "
+            f"({stats['samples_per_sec'] / 1e6:.2f} Msamples/s, "
+            f"{stats['mrays_per_sec']:.2f} Mrays/s) -> "
             f"{out}.exr / {out}.png"
         )
         return 0

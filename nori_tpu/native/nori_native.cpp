@@ -1,7 +1,7 @@
 // Native runtime components for nori_tpu.
 //
 // The reference's runtime is C++ (OBJ loading src/obj.cpp, acceleration
-// build src/accel.cpp); the TPU compute path is jax/XLA/Pallas, but the
+// build src/accel.cpp); the device compute path is jax/XLA, but the
 // host-side hot loops — OBJ parsing with vertex dedup and binned-SAH
 // BVH construction — are implemented natively here and exposed through
 // a C ABI consumed via ctypes (nori_tpu/native/__init__.py).  Python

@@ -6,7 +6,7 @@ v/vt/vn/f records, triangle and quad faces (quads split (0,1,2)+(0,2,3)),
 transform applied at load time (positions as points, normals through the
 inverse-transpose then normalized).
 
-Output is SoA numpy, ready for device upload: the TPU pipeline never
+Output is SoA numpy, ready for device upload: the device pipeline never
 touches per-vertex data again after scene compilation.
 """
 

@@ -5,7 +5,7 @@ class kind, participates in the addChild/setParent wiring done by the
 XML parser, and is finalized bottom-up through activate().
 
 These are *host-side* description objects.  Device execution state is
-produced separately by Scene.compile() as SoA jnp arrays — the TPU-first
+produced separately by Scene.compile() as SoA jnp arrays — the
 split between "scene description graph" and "flat render data".
 """
 

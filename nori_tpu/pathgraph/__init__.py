@@ -1,6 +1,6 @@
 """Path-graph radiance aggregation (reference layer L9, SURVEY.md §2.9).
 
-TPU-native rebuild of joyDeng's CUDA path-graph pipeline (the fork's
+JAX rebuild of joyDeng's CUDA path-graph pipeline (the fork's
 research contribution — src/pathgraph.cpp, src/cluster.cpp,
 src/pbsdf.cu, include/nori/shadingPoint.h): load binary dumps of
 path-traced shading points, build a uniform hash grid, find k-nearest

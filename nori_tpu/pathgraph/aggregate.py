@@ -26,7 +26,7 @@ Cluster mode — ClusterScatterWithDirectOptNR (shadingPoint.h:600-620):
 The scatter-with-atomicAdd deposits become per-point GATHERS here: the
 cluster neighborhood is symmetric (all pairs within a cluster), so each
 point sums over its cluster's members directly — dense masked math over
-a (n_clusters, pad) member table instead of serialized TPU scatters.
+a (n_clusters, pad) member table instead of atomic scatters.
 The reference's per-cluster energy-ratio rescale (clampCluster/
 computeRatio/updateComputeCluster, pbsdf.cu:2127-2183) IS applied each
 iteration (see energy_ratio below): clusters whose aggregated output
@@ -117,7 +117,8 @@ def _marginal_block(gp, mem_c, siz_c):
 
 
 @jax.jit
-def _direct_block(gp, ld, lb, lightpdf, mem_c, siz_c):
+def _direct_pdf_sums(gp, lightpdf, mem_c, siz_c):
+    """Per-member light-pdf and BSDF-pdf sums over the cluster."""
     pad = mem_c.shape[1]
     lane = jnp.arange(pad)
     valid = lane[None, :] < siz_c[:, None]
@@ -129,23 +130,35 @@ def _direct_block(gp, ld, lb, lightpdf, mem_c, siz_c):
     lightpdf_k = lightpdf[mem_c]
     mx = jnp.sum(jnp.where(valid_j, lightpdf_k[:, :, None], 0.0), axis=2)
     my = jnp.sum(jnp.where(valid_j, pdf_b, 0.0), axis=2)
+    return mx, my
 
-    sp_j = sp_k.expand(2)
-    wid_i = sp_k.wi_d[:, None, :, :]
-    wi_i = sp_k.wi[:, None, :, :]
-    f_d = eval_graph_bsdf(sp_j, wid_i)         # (m, j, i, 3)
-    f_b = eval_graph_bsdf(sp_j, wi_i)
-    ld_i = ld[mem_c][:, None, :, :]
-    lb_i = lb[mem_c][:, None, :, :]
-    mx_i = mx[:, None, :, None]
-    my_i = my[:, None, :, None]
-    contrib = (
-        jnp.where(mx_i > 0.0, f_d * ld_i / jnp.maximum(mx_i, 1e-20), 0.0)
-        + jnp.where(my_i > 0.0, f_b * lb_i / jnp.maximum(my_i, 1e-20), 0.0)
-    )
-    valid_i = valid[:, None, :, None]
-    contrib = jnp.where(valid_i, contrib, 0.0)
-    return jnp.sum(contrib, axis=2)
+
+@jax.jit
+def _direct_term(gp, dirs, light, pdf_sum, mem_c):
+    """(m, j, i, 3) MIS-weighted light from member i's stored sample
+    (direction `dirs`, radiance `light`) through member j's BSDF."""
+    sp_j = gp.gather(mem_c).expand(2)
+    f = eval_graph_bsdf(sp_j, dirs[mem_c][:, None, :, :])
+    l_i = light[mem_c][:, None, :, :]
+    m_i = pdf_sum[:, None, :, None]
+    return jnp.where(m_i > 0.0, f * l_i / jnp.maximum(m_i, 1e-20), 0.0)
+
+
+@jax.jit
+def _direct_sum(term_d, term_b, siz_c):
+    pad = term_d.shape[2]
+    valid_i = (jnp.arange(pad)[None, :] < siz_c[:, None])[:, None, :, None]
+    return jnp.sum(jnp.where(valid_i, term_d + term_b, 0.0), axis=2)
+
+
+def _direct_block(gp, ld, lb, lightpdf, mem_c, siz_c):
+    """Direct-light MIS re-aggregation of one cluster block, in three
+    separately compiled programs: as one program (pdf sums and both
+    BSDF evaluations fused together) the GPU compiler took minutes."""
+    mx, my = _direct_pdf_sums(gp, lightpdf, mem_c, siz_c)
+    term_d = _direct_term(gp, gp.wi_d, ld, mx, mem_c)
+    term_b = _direct_term(gp, gp.wi, lb, my, mem_c)
+    return _direct_sum(term_d, term_b, siz_c)
 
 
 @jax.jit
@@ -402,6 +415,23 @@ def _cluster_tables(members, sizes):
     return jnp.asarray(members), jnp.asarray(sizes)
 
 
+def _cluster_blocks(mem_j, siz_j, chunk: int):
+    """(b0, b1, members, sizes) per block of `chunk` clusters.  Every
+    block has the same shape (the last is padded with empty clusters),
+    so each block program compiles once."""
+    c = mem_j.shape[0]
+    chunk = min(chunk, c)
+    for b0 in range(0, c, chunk):
+        b1 = min(b0 + chunk, c)
+        mem_b, siz_b = mem_j[b0:b1], siz_j[b0:b1]
+        if b1 - b0 < chunk:
+            fill = chunk - (b1 - b0)
+            mem_b = jnp.concatenate(
+                [mem_b, jnp.zeros((fill,) + mem_b.shape[1:], mem_b.dtype)])
+            siz_b = jnp.concatenate([siz_b, jnp.zeros((fill,), siz_b.dtype)])
+        yield b0, b1, mem_b, siz_b
+
+
 def marginal_cluster(gp: GraphPoints, members, sizes, cluster_id,
                      chunk: int = 2048):
     """Per-point marginal (allGPUClusterPdfMarginal, pbsdf.cu:1239)."""
@@ -412,9 +442,8 @@ def marginal_cluster(gp: GraphPoints, members, sizes, cluster_id,
     out = np.zeros(n, np.float32)
     _block = lambda mem_c, siz_c: _marginal_block(gp, mem_c, siz_c)
 
-    for b0 in range(0, c, chunk):
-        b1 = min(b0 + chunk, c)
-        vals = np.asarray(_block(mem_j[b0:b1], siz_j[b0:b1]))
+    for b0, b1, mem_b, siz_b in _cluster_blocks(mem_j, siz_j, chunk):
+        vals = np.asarray(_block(mem_b, siz_b))[:b1 - b0]
         mm = members[b0:b1]
         mask = np.arange(pad)[None, :] < sizes[b0:b1][:, None]
         out[mm[mask]] = vals[mask]
@@ -443,9 +472,8 @@ def direct_cluster(gp: GraphPoints, lps, members, sizes,
         gp, ld, lb, lightpdf, mem_c, siz_c)
 
     out = np.zeros((n, 3), np.float32)
-    for b0 in range(0, c, chunk):
-        b1 = min(b0 + chunk, c)
-        vals = np.asarray(_block(mem_j[b0:b1], siz_j[b0:b1]))
+    for b0, b1, mem_b, siz_b in _cluster_blocks(mem_j, siz_j, chunk):
+        vals = np.asarray(_block(mem_b, siz_b))[:b1 - b0]
         mm = members[b0:b1]
         mask = np.arange(pad)[None, :] < sizes[b0:b1][:, None]
         out[mm[mask]] = vals[mask]
@@ -524,24 +552,24 @@ def iterate_cluster(gp: GraphPoints, lps, members, sizes, cluster_id,
         est = c * pad * pad * 3 * 4
         if est <= ELEMENTS_BUDGET_BYTES:
             elements = [
-                _elements_block(gp, marginal,
-                                mem_j[b0:min(b0 + chunk, c)],
-                                siz_j[b0:min(b0 + chunk, c)])
-                for b0 in range(0, c, chunk)
+                _elements_block(gp, marginal, mem_b, siz_b)
+                for _, _, mem_b, siz_b in _cluster_blocks(
+                    mem_j, siz_j, chunk)
             ]
         # else: fall back to per-iteration re-evaluation ("t" math)
 
     def mx_pass(temp):
         temp_j = jnp.asarray(temp)
         rad = np.zeros((n, 3), np.float32)
-        for bi, b0 in enumerate(range(0, c, chunk)):
-            b1 = min(b0 + chunk, c)
+        for bi, (b0, b1, mem_b, siz_b) in enumerate(
+                _cluster_blocks(mem_j, siz_j, chunk)):
             if elements is not None:
                 vals = np.asarray(_mx_from_elements_block(
-                    elements[bi], temp_j, mem_j[b0:b1]))
+                    elements[bi], temp_j, mem_b))
             else:
                 vals = np.asarray(_mx_block(
-                    gp, temp_j, marginal, mem_j[b0:b1], siz_j[b0:b1]))
+                    gp, temp_j, marginal, mem_b, siz_b))
+            vals = vals[:b1 - b0]
             mm = members[b0:b1]
             mask = np.arange(pad)[None, :] < sizes[b0:b1][:, None]
             rad[mm[mask]] = vals[mask]

@@ -149,9 +149,8 @@ class GraphPoints:
 
     def expand(self, axis: int):
         """Insert a broadcast axis (positive index) into every field.
-        TPU gathers are expensive: gather once per member table, then
-        broadcast to all-pairs shapes instead of gathering
-        (m, pad, pad) index tensors."""
+        Gather once per member table, then broadcast to all-pairs
+        shapes instead of gathering (m, pad, pad) index tensors."""
         assert axis >= 0
         g = object.__new__(GraphPoints)
         g.n = None

@@ -95,8 +95,7 @@ def trace_dump(scene, max_depth: int = 8, seed: int = 0,
             frame = make_frame(its.sh_n)
             wi_local = to_local(frame, its.wi_world)
             # one-gather fast helpers: identical values to the generic
-            # forms (the packed tables carry the same data); measured
-            # ~3x on the slow-helper whitted batch (tpu_jobs 022)
+            # forms (the packed tables carry the same data)
             am = sd.mesh_attr[its.mesh]
             params = BSDFParams(
                 type=jax.lax.bitcast_convert_type(am[:, 0], jnp.int32),

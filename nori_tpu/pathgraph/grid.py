@@ -1,6 +1,6 @@
 """Uniform hash grid + k-nearest-neighbor search.
 
-TPU-native replacement for the CUDA grid/KNN pipeline
+JAX replacement for the CUDA grid/KNN pipeline
 (pbsdf.cu:630-1175, 3173-3235): the reference counts points per cell,
 runs thrust::exclusive_scan, scatters indices, then brute-forces the 27
 neighboring cells with a quickselect per point.  Here the grid is built

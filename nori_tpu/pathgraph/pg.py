@@ -160,6 +160,9 @@ def main(argv=None):
                     choices=["opt", "n", "t", "l", "knn"])
     ap.add_argument("--save-dump", action="store_true")
     args = ap.parse_args(argv)
+    from nori_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     run(args.base, args.k, args.iterations, args.mode, args.save_dump)
     return 0
 

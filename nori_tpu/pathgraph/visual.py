@@ -3,7 +3,8 @@
 The reference ships an interactive nanogui/GL viewer (src/visual.cpp,
 src/shaders/path.{vs,fs}): the shading-point cloud colored by radiance
 phase (blurred indirect / blurred direct / full / eigenvector
-magnitude), plus per-pixel path polylines.  TPU hosts have no GL, so
+magnitude), plus per-pixel path polylines.  Accelerator hosts have no
+GL, so
 this renders the same views offline with matplotlib:
 
   point_cloud(...)   — 3D scatter colored by a per-point quantity

@@ -2,14 +2,14 @@
 
 Replaces the reference's tile/thread execution engine (src/main.cpp:38-151:
 BlockGenerator + tbb::parallel_for + per-thread sampler clones).  The
-TPU-native execution model: one jitted "sample pass" renders EVERY pixel's
+data-parallel execution model: one jitted "sample pass" renders EVERY pixel's
 k-th sample as a single wavefront (camera ray generation -> integrator
 -> filtered splat), and the host loops over sample indices, donating the
 film accumulator.  Determinism comes from counter-based RNG keyed by
 (seed, pixel*spp + sample) — the analogue of per-tile pcg32 seeding
 (src/independent.cpp:48-53) but stable under ANY device sharding.
 
-Multi-chip: `render_sharded` shards the lane axis across a
+Multi-device: `render_sharded` shards the lane axis across a
 jax.sharding.Mesh; the film scatter-add happens on per-device partial
 accumulators which XLA reduces with a psum-style sum at the end
 (replaces the mutex-protected ImageBlock::put merge).
@@ -99,9 +99,8 @@ def render(scene, spp: int | None = None, seed: int = 0,
     """Render a scene; returns (image (H, W, 3) numpy, stats dict).
 
     Work is batched over q = pixel * spp + sample and accumulated with
-    the scatter-free dense splat (wavefront.make_dense_splat) — XLA
-    TPU scatters cost ~90 ns/row, which made the old per-sample
-    scatter splat the dominant cost on simple integrators.  The jitted
+    the scatter-free dense splat (wavefront.make_dense_splat), whose
+    sum order is fixed.  The jitted
     pass is cached on the scene: re-rendering (e.g. bench warm + timed
     runs) must not recompile the program, which for streamed-scale
     scenes costs minutes.

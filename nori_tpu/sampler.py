@@ -2,7 +2,7 @@
 
 The reference Sampler (include/nori/sampler.h:62-107) is a mutable
 stream cloned per worker thread and seeded per tile
-(src/independent.cpp:33-77).  On TPU the equivalent is stateless: the
+(src/independent.cpp:33-77).  Here the equivalent is stateless: the
 Independent sampler just holds `sample_count` and a base seed; actual
 uniforms come from counter-based hashes of (seed, lane, stream) inside
 the jitted integrators (see nori_tpu.core.rng) so every (pixel, sample,

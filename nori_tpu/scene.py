@@ -7,7 +7,7 @@ The reference's emitter-list handling is a stub (src/scene.cpp:67-71);
 here scene-level children of kind emitter are rejected explicitly
 (only mesh-attached area lights are supported, as in the assignments).
 
-TPU-native split: `Scene.compile()` flattens the whole scene into a
+Device split: `Scene.compile()` flattens the whole scene into a
 `SceneData` pytree of device arrays — one global triangle soup with
 per-triangle mesh ids, a per-mesh BSDF parameter table, per-mesh
 emitter radiance, and a scene-level emissive-triangle CDF for light
@@ -27,72 +27,20 @@ from nori_tpu.props import PropertyList
 from nori_tpu.registry import register_class, NoriError, create_instance
 from nori_tpu.bsdf import BSDFTable
 
-TRI_PAD = 512  # triangle padding granularity (LCM of sweep-kernel tiles)
+#: triangle padding granularity: a multiple of both culling-tile sizes
+#: and of intersect_brute's 64-triangle scan chunk
+TRI_PAD = 512
+#: triangles per culling tile (tri_tile_bounds): fine tiles for most
+#: scenes, coarse ones for soups above COARSE_TILES_ABOVE padded
+#: triangles, which keeps the sort keys' tile count bounded
+TILE_T_FINE = 128
+TILE_T_COARSE = 512
+COARSE_TILES_ABOVE = 233_016
 
 
-def _build_tri_mxu(v0, e1, e2, n_tris):
-    """(16, 4*T) Moller-Trumbore weight matrix for the MXU sweep
-    (10 live feature rows padded to 16 for MXU-friendly K).
-
-    Ray features F = [o(3), d(3), (o x d)(3), 1]; per triangle the four
-    output columns reconstruct (equivalently to src/mesh.cpp:51-88):
-      det   = -d.n                      (n = e1 x e2, unnormalized)
-      u_num = (o x d).e2 + d.(v0 x e2)  (= (o-v0).(d x e2))
-      v_num = -(o x d).e1 - d.(v0 x e1) (= d.((o-v0) x e1))
-      t_num = o.n - v0.n                (= e2.((o-v0) x e1))
-    so that u = u_num/det, v = v_num/det, t = t_num/det.  Columns are
-    grouped per FINE_T tile as [det | u | v | t] blocks so the kernel
-    epilogue slices aligned (TILE_N, FINE_T) views.  Padded triangles
-    get all-zero columns (det == 0 -> never hit).
-    """
-    from nori_tpu.accel.pallas_mt import FINE_T
-
-    T = v0.shape[0]
-    n = np.cross(e1, e2)
-    w = np.zeros((T, 4, 16), dtype=np.float32)  # K padded 10 -> 16
-    w[:, 0, 3:6] = -n
-    w[:, 1, 3:6] = np.cross(v0, e2)
-    w[:, 1, 6:9] = e2
-    w[:, 2, 3:6] = -np.cross(v0, e1)
-    w[:, 2, 6:9] = -e1
-    w[:, 3, 0:3] = n
-    w[:, 3, 9] = -np.einsum("ij,ij->i", v0, n)
-    w[n_tris:] = 0.0
-    # (T, 4, 16) -> tiles (T/F, F, 4, 16) -> (T/F, 4, F, 16) ->
-    # rows 16, cols tile-major [det block | u | v | t]
-    nt = T // FINE_T
-    wt = w.reshape(nt, FINE_T, 4, 16).transpose(0, 2, 1, 3)
-    return np.ascontiguousarray(
-        wt.reshape(nt * 4 * FINE_T, 16).T).astype(np.float32)
-
-
-def _build_tri_bw(v0, e1, e2, n_tris):
-    """(12, T) Baldwin-Weber transform rows for the resident sweep:
-    [n(3) | d_plane | U(3) | u_w | V(3) | v_w] per triangle, so the
-    kernel evaluates t = -(n.o + d_plane)/(n.d) and barycentrics as
-    affine functions u = U.p + u_w, v = V.p + v_w of the hit point
-    p = o + t d ("Fast Ray-Triangle Intersections by Coordinate
-    Transformation", Baldwin & Weber, JCGT 2016).  With n = e1 x e2
-    the kernel's |n.d| > 1e-8 cutoff equals Moller-Trumbore's |det|
-    cutoff (src/mesh.cpp:56-59): det = e1.(d x e2) = -(n.d).  Rows
-    are computed in float64 and rounded once.  Padded/degenerate
-    triangles get n = 0 -> den = 0 -> never hit.
-    """
-    v0d = v0.astype(np.float64)
-    n = np.cross(e1.astype(np.float64), e2.astype(np.float64))
-    nn = np.einsum("ij,ij->i", n, n)
-    safe = np.where(nn > 0.0, nn, 1.0)[:, None]
-    U = np.cross(e2.astype(np.float64), n) / safe
-    V = np.cross(n, e1.astype(np.float64)) / safe
-    out = np.zeros((12, v0.shape[0]), np.float32)
-    out[0:3] = n.T
-    out[3] = -np.einsum("ij,ij->i", n, v0d)
-    out[4:7] = U.T
-    out[7] = -np.einsum("ij,ij->i", U, v0d)
-    out[8:11] = V.T
-    out[11] = -np.einsum("ij,ij->i", V, v0d)
-    out[:, n_tris:] = 0.0
-    return out
+def coarse_tiles(t_padded: int) -> bool:
+    """Whether a soup of `t_padded` triangles gets coarse tiles."""
+    return t_padded > COARSE_TILES_ABOVE
 
 
 class SceneData(NamedTuple):
@@ -109,10 +57,10 @@ class SceneData(NamedTuple):
     tri_uv1: jnp.ndarray  # (T, 2)
     tri_uv2: jnp.ndarray  # (T, 2)
     tri_mesh: jnp.ndarray  # (T,) int32 mesh id
-    # packed per-triangle shading attributes, ONE gather per hit
-    # (XLA TPU pays ~per-row for gathers, so 10 separate (T,3) gathers
-    # cost ~2.5x one (T,20) gather): [geo_n(3), n0(3), n1(3), n2(3),
-    # uv0(2), uv1(2), uv2(2), mesh-id-bits(1), pad(1)]
+    # packed per-triangle shading attributes, ONE row gather per hit
+    # instead of ten (T, 3) gathers: [geo_n(3), n0(3), n1(3), n2(3),
+    # uv0(2), uv1(2), uv2(2), mesh-id-bits(1), pad(1), v0(3), e1(3),
+    # e2(3)]
     tri_attr: jnp.ndarray  # (T, 28)
     # packed emissive-sample table, indexed by CDF sample position:
     # [v0(3), e1(3), e2(3), n0(3), n1(3), n2(3), radiance(3), pad(3)]
@@ -120,17 +68,9 @@ class SceneData(NamedTuple):
     # packed per-mesh shading row (one gather = BSDF params + emission):
     # [type-bits(1), albedo(3), alpha, int_ior, ext_ior, ks, Le(3), pad]
     mesh_attr: jnp.ndarray  # (M, 12)
-    tri_packed: jnp.ndarray  # (9, T) [v0|e1|e2] layout for the MT sweep kernel
-    # MXU form of Moller-Trumbore: per FINE_T tile, 4 column blocks
-    # [det | u_num | v_num | t_num]; ray features [o, d, o x d, 1]
-    # (10, K-padded to 16) contract against these on the systolic
-    # array, leaving only the ratio/compare epilogue on the VPU
-    tri_mxu: jnp.ndarray   # (16, 4*T)
-    # Baldwin-Weber per-triangle transforms for the resident sweep
-    # (config.USE_BW_SWEEP); (12, 4) placeholder for streamed scenes
-    tri_bw: jnp.ndarray    # (12, T)
-    tri_tile_bounds: jnp.ndarray  # (T/FINE_T, 8) per-tile AABBs for culling
-    scene_bounds: jnp.ndarray  # (1, 8) [center xyz, half-diag, ...]
+    # (T/tile, 8) [bmin | bmax | pad] per culling tile; the wavefront's
+    # coherence-sort keys test rays against these
+    tri_tile_bounds: jnp.ndarray
 
     bsdf: BSDFTable        # per-mesh BSDF params
 
@@ -294,17 +234,9 @@ class Scene(NoriObject):
                 [tri_mesh, np.zeros(pad, dtype=np.int32)]
             )
 
-        # --- per-tile AABBs for sweep-kernel culling ------------------------
-        # FINE_T granularity for resident-size scenes (the kernel culls
-        # at 128 triangles; the 2-D streamed kernel coarsens these to
-        # its 512-tile groups).  Soups too big for VMEM use the
-        # HBM-streamed kernel whose DMA'd slabs are STREAM_T triangles:
-        # the tile is the DMA unit, so bounds are built at that size.
-        from nori_tpu.accel.pallas_mt import (
-            FINE_T, RESIDENT_VMEM_BUDGET, STREAM_T)
+        # --- per-tile AABBs --------------------------------------------------
         t_padded = v0.shape[0]
-        streamed = 9 * t_padded * 4 > RESIDENT_VMEM_BUDGET
-        tile_gran = STREAM_T if streamed else FINE_T
+        tile_gran = TILE_T_COARSE if coarse_tiles(t_padded) else TILE_T_FINE
         n_tiles = t_padded // tile_gran
         tile_bounds = np.zeros((n_tiles, 8), dtype=np.float32)
         p1f = v0 + e1
@@ -318,11 +250,6 @@ class Scene(NoriObject):
             np.where(valid, p2f, -np.inf))
         tile_bounds[:, 0:3] = lo3.reshape(n_tiles, tile_gran, 3).min(1)
         tile_bounds[:, 3:6] = hi3.reshape(n_tiles, tile_gran, 3).max(1)
-        center = 0.5 * (bbox_min + bbox_max)
-        half_diag = 0.5 * float(np.linalg.norm(bbox_max - bbox_min)) + 1e-3
-        scene_bounds_row = np.zeros((1, 8), dtype=np.float32)
-        scene_bounds_row[0, 0:3] = center
-        scene_bounds_row[0, 3] = half_diag
 
         # --- per-mesh tables -----------------------------------------------
         bsdf_table = BSDFTable.build([m.bsdf for m in self.meshes])
@@ -359,8 +286,7 @@ class Scene(NoriObject):
         gn_f = gn_f / np.maximum(
             np.linalg.norm(gn_f, axis=-1, keepdims=True), 1e-24)
         # cols 19:28 carry v0|e1|e2 so the interaction fill can
-        # recompute barycentrics for the winning triangle (the sweep
-        # kernel tracks only (t, idx))
+        # rebuild the hit point from the winning triangle
         tri_attr = np.concatenate(
             [gn_f.astype(np.float32), n0, n1, n2, uv0, uv1, uv2,
              tri_mesh.astype(np.int32).view(np.float32)[:, None],
@@ -398,32 +324,7 @@ class Scene(NoriObject):
             tri_attr=jnp.asarray(tri_attr),
             em_attr=jnp.asarray(em_attr),
             mesh_attr=jnp.asarray(mesh_attr),
-            # streamed scenes carry 7 zero rows after [v0|e1|e2]: the
-            # Mosaic DMA that slices (rows, STREAM_T) slabs out of HBM
-            # requires the sublane extent to be 8-aligned (9 is not;
-            # 16 is), and the resident kernel never sees these soups
-            tri_packed=jnp.asarray(np.concatenate(
-                [v0.T, e1.T, e2.T]
-                + ([np.zeros((7, t_padded), np.float32)] if streamed
-                   else []), axis=0)),
-            # streamed-scale soups never take the MXU path; skip the
-            # (16, 4*T) weight table, which would cost ~140 MB at ajax
-            # scale
-            tri_mxu=jnp.asarray(
-                _build_tri_mxu(v0, e1, e2, n_tris) if not streamed
-                else np.zeros((16, 4), np.float32)),
-            # streamed scenes get BW rows padded to the 16-row DMA
-            # sublane alignment: the streamed kernel's slab copies ship
-            # 16 rows either way (7 of them zeros under the MT layout),
-            # so the 12-row Baldwin-Weber operand is bandwidth-free and
-            # saves ~16 VPU ops per pair test
-            tri_bw=jnp.asarray(
-                _build_tri_bw(v0, e1, e2, n_tris) if not streamed
-                else np.concatenate(
-                    [_build_tri_bw(v0, e1, e2, n_tris),
-                     np.zeros((4, t_padded), np.float32)], axis=0)),
             tri_tile_bounds=jnp.asarray(tile_bounds),
-            scene_bounds=jnp.asarray(scene_bounds_row),
             bsdf=bsdf_table,
             em_radiance=jnp.asarray(em_rad),
             mesh_emissive=jnp.asarray(em_mask),

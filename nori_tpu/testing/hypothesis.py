@@ -13,7 +13,7 @@ Expected frequencies for sampling tests are obtained by numerically
 integrating the claimed pdf over histogram cells; the reference uses
 adaptive Simpson (hypothesis::adaptiveSimpson2D) — here a dense
 composite Simpson rule evaluated in one vectorized call, which exploits
-the TPU/vectorized pdf instead of recursive scalar quadrature.
+the vectorized pdf instead of recursive scalar quadrature.
 """
 
 from __future__ import annotations
@@ -148,7 +148,7 @@ def chi2_dump(obs, exp, filename: str):
     (the hypothesis library's chi2_dump contract, invoked by
     src/chi2test.cpp:179-180 as chi2test_%i.m): load it in
     MATLAB/Octave to plot both tables side by side when a test fails
-    on the TPU host."""
+    on a display-less host."""
     obs = np.asarray(obs, dtype=np.float64)
     exp = np.asarray(exp, dtype=np.float64)
 

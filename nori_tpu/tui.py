@@ -3,7 +3,7 @@
 The reference's NoriScreen (src/gui.cpp:19-132) is a nanogui window
 that shows the film live while rendering, with an exposure slider
 feeding a sRGB tonemap shader (src/gui.cpp:36-42, scale = 2^exposure).
-A TPU pod host has no display server, but every session has a
+An accelerator host has no display server, but every session has a
 terminal: this module renders the film into 24-bit ANSI color using
 U+2580 half blocks (each character cell carries two vertically stacked
 pixels: foreground color = top, background = bottom), which modern
@@ -30,21 +30,27 @@ _RESET = _CSI + "0m"
 _HALF = "▀"           # upper half block
 
 
-def _resize_area(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
-    """Downscale (H, W, 3) float RGB with PIL's box/bilinear filter
-    (good enough for a preview; avoids hand-rolled reduceat bins)."""
-    from PIL import Image
+def _area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) box-filter weights: output cell i averages the
+    input cells its span [i, i+1) * n_in / n_out overlaps, weighted by
+    the overlap length."""
+    edges = np.arange(n_out + 1) * (n_in / n_out)
+    lo = np.maximum(edges[:-1, None], np.arange(n_in)[None, :])
+    hi = np.minimum(edges[1:, None], np.arange(1, n_in + 1)[None, :])
+    wgt = np.maximum(hi - lo, 0.0)
+    return wgt / wgt.sum(axis=1, keepdims=True)
 
+
+def _resize_area(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """Resize (H, W, 3) float RGB with a box filter (area average when
+    shrinking, nearest cell when growing)."""
     h, w = img.shape[:2]
     if (w, h) == (out_w, out_h):
         return img
-    chans = []
-    filt = Image.BOX if (out_w < w or out_h < h) else Image.BILINEAR
-    for c in range(3):
-        im = Image.fromarray(np.ascontiguousarray(
-            img[:, :, c], dtype=np.float32), mode="F")
-        chans.append(np.asarray(im.resize((out_w, out_h), filt)))
-    return np.stack(chans, axis=-1)
+    wy = _area_weights(h, out_h)
+    wx = _area_weights(w, out_w)
+    return np.einsum("yh,hwc,xw->yxc", wy, np.asarray(img, np.float64),
+                     wx).astype(np.float32)
 
 
 def frame_pixels(img: np.ndarray, cols: int, rows: int,

@@ -7,7 +7,7 @@ integrated over the bins; exit code 0/1 for scripting.  The nanogui
 point-cloud visualizer half is replaced by an interactive terminal
 arcball (--view: ANSI half-block point cloud with rotate/zoom keys,
 nori_tpu.tui) and an optional matplotlib scatter dump (--plot
-out.png) — no GL on TPU hosts — with the GUI's
+out.png) — no GL on accelerator hosts — with the GUI's
 point-sampling modes (src/warptest.cpp:73-77, 283-293):
 independent | grid ((x+.5)/sqrt(n)) | stratified ((x+xi)/sqrt(n)),
 plus the warped-gridline overlay (--grid-lines) that draws the image

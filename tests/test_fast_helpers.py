@@ -1,11 +1,10 @@
 """The one-gather fast helpers must equal the generic per-field forms.
 
 The production integrators read the packed tables (tri_attr /
-mesh_attr / em_attr) in single row gathers (measured: the per-field
-forms cost ~67 ms of a 91.5 ms 131k-lane whitted batch at ajax scale);
-the generic forms stay as the readable reference implementation.  This
-test pins their value-equality so the packed tables can never drift
-from the source arrays.
+mesh_attr / em_attr) in single row gathers; the generic forms stay as
+the readable reference implementation.  This test pins their
+value-equality so the packed tables can never drift from the source
+arrays.
 """
 
 import numpy as np
@@ -22,8 +21,9 @@ import jax
 
 def _rays(sd, n=1024, seed=5):
     rng = np.random.RandomState(seed)
-    center = np.asarray(sd.scene_bounds)[0, 0:3]
-    half = float(np.asarray(sd.scene_bounds)[0, 3])
+    lo, hi = np.asarray(sd.bbox_min), np.asarray(sd.bbox_max)
+    center = 0.5 * (lo + hi)
+    half = 0.5 * float(np.linalg.norm(hi - lo)) + 1e-3
     o = center + (rng.rand(n, 3).astype(np.float32) - 0.5) * half
     d = rng.randn(n, 3).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)

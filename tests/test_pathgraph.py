@@ -169,6 +169,77 @@ def test_cluster_modes_n_and_t_agree(small_graph):
         assert np.allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["opt", "n"])
+def test_cluster_blocks_do_not_change_results(small_graph, mode):
+    """Cluster blocks are padded to one shape (one compile per block
+    program); the block size must not change what is computed."""
+    import jax.numpy as jnp
+    from nori_tpu.pathgraph import aggregate
+    from nori_tpu.pathgraph.cluster import build_clusters, pad_clusters
+
+    g, _ = small_graph
+    gp = GraphPoints(g.sps)
+    pos = np.asarray(g.sps["pos"])
+    cid, order, offsets = build_clusters(
+        pos, g.grid_dimensions(), g.aabb_min, g.aabb_max, 8)
+    gp.groupIdx = jnp.asarray(cid.astype(np.int32))
+    members, sizes = pad_clusters(order, offsets, pad=16)
+    assert members.shape[0] % 7 != 0
+    one = aggregate.iterate_cluster(gp, g.lps, members, sizes, cid,
+                                    iterations=1, mode=mode)
+    many = aggregate.iterate_cluster(gp, g.lps, members, sizes, cid,
+                                     iterations=1, mode=mode, chunk=7)
+    for a, b in zip(one[0] + one[1] + [one[2]],
+                    many[0] + many[1] + [many[2]]):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _direct_block_fused(gp, ld, lb, lightpdf, mem_c, siz_c):
+    """The direct-light block as one expression (pdf sums and both BSDF
+    evaluations together): the oracle for the split programs."""
+    import jax.numpy as jnp
+
+    pad = mem_c.shape[1]
+    valid = jnp.arange(pad)[None, :] < siz_c[:, None]
+    sp_k = gp.gather(mem_c)
+    pdf_b = pdf_graph_bsdf(sp_k.expand(1), sp_k.wi[:, :, None, :])
+    valid_j = valid[:, None, :]
+    mx = jnp.sum(jnp.where(valid_j, lightpdf[mem_c][:, :, None], 0.0), 2)
+    my = jnp.sum(jnp.where(valid_j, pdf_b, 0.0), axis=2)
+    sp_j = sp_k.expand(2)
+    f_d = eval_graph_bsdf(sp_j, sp_k.wi_d[:, None, :, :])
+    f_b = eval_graph_bsdf(sp_j, sp_k.wi[:, None, :, :])
+    mx_i, my_i = mx[:, None, :, None], my[:, None, :, None]
+    contrib = (
+        jnp.where(mx_i > 0.0,
+                  f_d * ld[mem_c][:, None] / jnp.maximum(mx_i, 1e-20), 0.0)
+        + jnp.where(my_i > 0.0,
+                    f_b * lb[mem_c][:, None] / jnp.maximum(my_i, 1e-20),
+                    0.0))
+    return jnp.sum(jnp.where(valid[:, None, :, None], contrib, 0.0), axis=2)
+
+
+def test_direct_block_split_matches_fused(small_graph):
+    """The direct-light block runs as three programs; together they
+    compute what the single fused expression does."""
+    import jax.numpy as jnp
+    from nori_tpu.pathgraph import aggregate
+
+    g, _ = small_graph
+    gp = GraphPoints(g.sps)
+    pos = np.asarray(g.sps["pos"])
+    cid, order, offsets = build_clusters(
+        pos, g.grid_dimensions(), g.aabb_min, g.aabb_max, 8)
+    members, sizes = pad_clusters(order, offsets, pad=16)
+    mem_c, siz_c = jnp.asarray(members), jnp.asarray(sizes)
+    args = [jnp.asarray(np.asarray(g.lps[k]), jnp.float32)
+            for k in ("L_directsample", "L_bsdfsample", "lightpdf")]
+    got = np.asarray(aggregate._direct_block(gp, *args, mem_c, siz_c))
+    want = np.asarray(_direct_block_fused(gp, *args, mem_c, siz_c))
+    assert np.isfinite(got).all() and np.abs(want).max() > 0.0
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
 def test_cluster_mode_opt_records_final_only(small_graph):
     import jax.numpy as jnp
     from nori_tpu.pathgraph import aggregate

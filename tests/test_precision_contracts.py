@@ -1,16 +1,13 @@
 """Device-path precision contracts.
 
-On TPU, XLA lowers `dot_general` at DEFAULT precision to bf16 MXU
-passes.  A single stray `@` on the compute path silently injects
-~4e-3 relative error — round 3 shipped exactly that bug in the camera
-(primary rays bent + denormalized; every stored specular sample failed
-the path-graph delta-alignment window).  These tests pin the two
-contracts that prevent the class:
+XLA may run a float32 `dot_general` at reduced precision by default
+(TF32 on the GPU, which keeps about three decimal digits).  A single
+stray `@` on the compute path then silently bends every primary ray
+and leaves its direction off unit length; every stored specular sample
+would fail the path-graph delta-alignment window.  These tests pin the
+two contracts that prevent the class:
 
-* the wavefront step and the camera contain NO dot_general at all
-  (Pallas kernels are opaque here and audited separately — their
-  matmuls either accumulate exact small integers / powers of two in
-  f32 or request Precision.HIGHEST);
+* the wavefront step and the camera contain NO dot_general at all;
 * camera ray directions are unit length.
 """
 
